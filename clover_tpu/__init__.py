@@ -1,11 +1,11 @@
-"""clover_tpu — a TPU-native block-scaled quantized linear-algebra engine.
+"""clover_tpu — a block-scaled quantized linear-algebra engine in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference AVX2 library (astojanov/Clover): 4/8-bit block-scaled
-stochastic-quantized formats plus fp16/fp32, dequant-fused kernels
-(quantize, restore, dot, scaleAndAdd, fused-requant MVM, transpose, top-K
-threshold), GD and IHT solvers, and mesh-sharded multi-chip execution with
-ICI-psum'd partials.
+stochastic-quantized formats plus fp16/fp32, quantize / restore / dot /
+scaleAndAdd / transpose / top-K threshold, the fused requantizing MVM (a
+Triton kernel on GPUs), GD and IHT solvers, and mesh-sharded multi-device
+execution with psum'd partials.
 """
 
 from .formats import (

@@ -1,6 +1,6 @@
 """CLI with the reference's four modes (src/main.cpp:16-50):
 
-    python -m clover_tpu -v   validation   (kernels vs golden oracle)
+    python -m clover_tpu -v   validation   (ops vs golden oracle)
     python -m clover_tpu -p   performance  (bandwidth/roofline tables)
     python -m clover_tpu -a   accuracy     (IHT/GD solver quality traces)
     python -m clover_tpu -g   grid search  (best mu / iterations per size)
@@ -15,9 +15,9 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="clover_tpu",
-        description="TPU-native block-scaled quantized linear algebra")
+        description="block-scaled quantized linear algebra")
     p.add_argument("-v", "--validate", action="store_true",
-                   help="validate production kernels against the golden "
+                   help="validate production ops against the golden "
                         "oracle across size sweeps")
     p.add_argument("-p", "--performance", action="store_true",
                    help="run the performance benchmark tables")

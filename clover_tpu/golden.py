@@ -160,17 +160,21 @@ def scale_and_add(u_codes, u_scales, v_codes, v_scales, a, bits: int,
 # Fused MVM with output requantization (reference: CloverMatrix4.h:311-401)
 # ---------------------------------------------------------------------------
 
-def mvm_f32_exact(a_codes, a_scales, x_codes, x_scales, bits: int) -> np.ndarray:
+def mvm_f32_exact(a_codes, a_scales, x_codes, x_scales, bits: int,
+                  x_bits: int | None = None) -> np.ndarray:
     """The f32 band values BEFORE requantization: per-row blocked int dot
-    with per-tile combined scales, blocks combined in order."""
+    with per-tile combined scales, blocks combined in order.  ``x_bits``
+    (default ``bits``) gives x's precision for the mixed 4x8 form."""
     qmax = f32(7.0) if bits == 4 else f32(127.0)
+    qx = qmax if x_bits is None else (f32(7.0) if x_bits == 4
+                                      else f32(127.0))
     m, n = a_codes.shape
     nb = n // BLOCK
     a3 = a_codes.astype(np.int64).reshape(m, nb, BLOCK)
     x2 = x_codes.astype(np.int64).reshape(nb, BLOCK)
     acc = np.einsum("ibk,bk->ib", a3, x2)              # exact integer
     comb = ((np.repeat(a_scales, BLOCK, axis=0) / qmax) *
-            (x_scales[None, :] / qmax)).astype(f32)    # (m, nb)
+            (x_scales[None, :] / qx)).astype(f32)      # (m, nb)
     y = np.zeros(m, f32)
     for b in range(nb):
         y = (y + comb[:, b] * acc[:, b].astype(f32)).astype(f32)

@@ -1,6 +1,6 @@
 """Measurement, validation, accuracy, and hyper-parameter-search harness.
 
-The TPU re-creation of the reference's test/benchmark layers (SURVEY §L5/L6):
+The re-creation of the reference's test/benchmark layers (SURVEY §L5/L6):
 ``lib/perf`` (timing), ``test/validate`` (-v), ``test/performance`` (-p),
 ``test/accuracy`` (-a), ``test/search`` (-g).  Entry point: clover_tpu.cli.
 """

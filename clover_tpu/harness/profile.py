@@ -1,14 +1,16 @@
 """Profiling / observability (SURVEY §5 tracing equivalent).
 
-The reference's only introspection is the fenced RDTSC counter; the TPU
-framework exposes the real thing: ``jax.profiler`` traces (viewable in
-TensorBoard/Perfetto) plus a roofline accountant that pairs measured op
-times with the bytes each container op must touch.
+The reference's only introspection is the fenced RDTSC counter; here
+``jax.profiler`` traces (viewable in TensorBoard/Perfetto) plus a roofline
+accountant that pairs measured op times with the bytes each container op
+must touch.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import glob
 import os
 
 import jax
@@ -17,10 +19,10 @@ from .timing import gbs, pct_roofline
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/clover_tpu_trace"):
+def trace(logdir: str):
     """Capture a device trace around a block:
 
-        with profile.trace("/tmp/t"):
+        with profile.trace("chiprun_out/trace"):
             run_step()
     """
     os.makedirs(logdir, exist_ok=True)
@@ -29,6 +31,27 @@ def trace(logdir: str = "/tmp/clover_tpu_trace"):
         yield logdir
     finally:
         jax.profiler.stop_trace()
+
+
+def device_op_times(logdir: str) -> dict:
+    """Reduce the newest trace under ``logdir`` to device time per
+    operation: {(plane, line): Counter(event name -> total ns)} over the
+    device planes (``/device:...``).  Lines separate streams from the
+    per-op and per-module views, so totals are read per line."""
+    paths = sorted(glob.glob(os.path.join(logdir, "plugins", "profile",
+                                          "*", "*.xplane.pb")))
+    if not paths:
+        raise FileNotFoundError(f"no trace under {logdir}")
+    data = jax.profiler.ProfileData.from_file(paths[-1])
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        for line in plane.lines:
+            c = out.setdefault((plane.name, line.name), collections.Counter())
+            for ev in line.events:
+                c[ev.name] += ev.duration_ns
+    return out
 
 
 def annotate(name: str):

@@ -1,5 +1,5 @@
 """Hyper-parameter (mu) search: the reference's `-g` grid-search machinery
-(test/performance/03_iht_gd_util.h) re-created TPU-first.
+(test/performance/03_iht_gd_util.h) re-created for jitted solves.
 
 Key design change vs the reference: convergence probes do NOT early-stop a
 device loop.  The solver runs its full fixed-length scan (one compiled

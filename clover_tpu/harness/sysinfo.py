@@ -3,27 +3,28 @@ compiler identity, OpenMP status -> here: JAX/backend/device identity)."""
 
 from __future__ import annotations
 
-import os
 import platform
 import sys
 
 import jax
 
-from .timing import BF16_FLOPS, HBM_BYTES_PER_S
+from .timing import PEAKS
 
 
 def banner() -> str:
     devs = jax.devices()
+    kind = devs[0].device_kind if devs else "?"
+    pk = PEAKS.get(kind)
+    roof = (f"HBM {pk.hbm_bytes_per_s / 1e9:.0f} GB/s, "
+            f"bf16 {pk.bf16_flops / 1e12:.0f} TFLOP/s ({pk.source})"
+            if pk else "no published peaks for this device")
     lines = [
-        "clover_tpu — TPU-native block-scaled quantized linear algebra",
+        "clover_tpu — block-scaled quantized linear algebra",
         f"python   : {sys.version.split()[0]} on {platform.platform()}",
         f"jax      : {jax.__version__}",
         f"backend  : {jax.default_backend()}",
-        f"devices  : {len(devs)} x {devs[0].device_kind if devs else '?'}",
-        f"roofline : HBM {HBM_BYTES_PER_S / 1e9:.0f} GB/s, "
-        f"bf16 {BF16_FLOPS / 1e12:.0f} TFLOP/s (per chip, spec)",
-        f"pallas   : {'interpret' if os.environ.get('PALLAS_INTERPRET') == '1' else 'compiled'}, "
-        f"dispatch {'forced=' + os.environ['CLOVER_PALLAS'] if 'CLOVER_PALLAS' in os.environ else 'auto'}",
+        f"devices  : {len(devs)} x {kind}",
+        f"roofline : {roof}",
     ]
     return "\n".join(lines)
 

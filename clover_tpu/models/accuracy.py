@@ -82,7 +82,7 @@ def run_gd_accuracy(config, m=384, n=256, iterations=500, mu=GD_MU,
     ``data`` as in run_iht_accuracy: "reference" = the bit-exact
     (Phi, x*, y) of the reference's test_gd
     (problems.make_gd_problem_reference, verified against the
-    from-source build's dump — doc/results/gd_accuracy_parity_r4.md);
+    from-source build's dump, doc/results/refrun);
     "auto" = "reference" at the protocol size with no explicit seed.
     """
     if data == "auto":

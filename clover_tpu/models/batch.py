@@ -3,19 +3,10 @@
 The reference is strictly single-problem (Q_IHT / Q_GD,
 test/performance/01_measure.h:912-1023).  A production recovery
 pipeline usually solves MANY right-hand sides against one sensing
-matrix (multi-frame / multi-channel compressive sensing); on TPU the
-matrix stream is the per-iteration cost, so the batch should ride ONE
-HBM traversal: both MVM legs go through the batched fused kernel
-(kernels/mvm_batched.py — shrinking k-tiles keep its matmuls near one
-128-lane MXU pass however large the batch), and the vector-sized
-scaleAndAdd / threshold steps ride ``jax.vmap`` (measured ~1.5 us and
-~4.6 us per problem at B=8, n=4096 — cheaper per problem than their
-single-problem launches).
-
-Measured v5e per-problem iteration time (4-bit, B=8): 16-23 us at
-2048x4096 and 38-40 us at 4096x8192, i.e. 1.7-2.5x the single solver
-per problem (its own time swings ~40% between chip sessions; see the
-batched-IHT rows in doc/results/performance_tpu_v5e.txt).
+matrix (multi-frame / multi-channel compressive sensing).  The matrix
+stream is the per-iteration cost, so both MVM legs go through
+ops.gemm.mvm_batched (one XLA program for the whole batch), and the
+vector-sized scaleAndAdd / threshold steps ride ``jax.vmap``.
 
 Numerics: each problem follows the UNFUSED single-problem iteration
 (mvm -> scaleAndAdd -> threshold) — the documented equivalent of the
@@ -25,9 +16,8 @@ scaleAndAdds share one noise draw per stage across the batch (every
 problem still sees a valid unbiased SR stream; problems are
 independent, so cross-problem noise correlation affects nothing).
 
-Supported precisions: the fused-kernel modes 4x4 / 4x8 / 8x8 (pure
-16/32-bit batches gain nothing from packing — run the single solver
-per problem).
+Supported precisions: 4x4 / 4x8 / 8x8 (pure 16/32-bit batches gain
+nothing from packing — run the single solver per problem).
 """
 
 from __future__ import annotations
@@ -39,7 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from ..formats import zeros_vector
-from ..ops import restore_vec, scale_and_add, threshold
+from ..ops import _core, restore_vec, scale_and_add, threshold
 from ..ops.gemm import mvm_batched
 from .solvers import _op_seeds, _vec_bits
 
@@ -54,50 +44,28 @@ def _batch(qs):
     return jax.tree_util.tree_leaves(qs)[0].shape[0]
 
 
-def _iteration_b(Phi, PhiT, ys, xs, mu, k, seed, use_kernel,
-                 a_i4s=(None, None)):
+def _iteration_b(Phi, PhiT, ys, xs, mu, k, seed):
     k1, k2, k3, k4 = _op_seeds(seed)
-    t1 = mvm_batched(Phi, xs, key=k1, use_kernel=use_kernel,
-                     a_i4=a_i4s[0])                            # (B, m)
+    t1 = mvm_batched(Phi, xs, key=k1)                          # (B, m)
     t2 = jax.vmap(lambda y, t: scale_and_add(y, t, -1.0, key=k2))(ys, t1)
-    t3 = mvm_batched(PhiT, t2, key=k3, use_kernel=use_kernel,
-                     a_i4=a_i4s[1])                            # (B, n)
+    t3 = mvm_batched(PhiT, t2, key=k3)                         # (B, n)
     xs = jax.vmap(lambda x, t: scale_and_add(x, t, mu, key=k4))(xs, t3)
     if k is not None:
         xs = jax.vmap(lambda x: threshold(x, k))(xs)
     return xs
 
 
-@partial(jax.jit, static_argnames=("iterations", "k", "use_kernel"))
-def _solve_b(Phi, PhiT, ys, xs0, xs_star, iterations: int, k, mu, key,
-             use_kernel=None):
-    from ..kernels.dispatch import SEED_GOLD, seed_from
+@partial(jax.jit, static_argnames=("iterations", "k"))
+def _solve_b(Phi, PhiT, ys, xs0, xs_star, iterations: int, k, mu, key):
     if xs_star is not None:
         star32 = xs_star.values                            # (B, n_pad)
         star_norm = jnp.linalg.norm(star32, axis=-1)
-    seed0 = seed_from(key)[0] if key is not None else None
-
-    # pure-4-bit batches on the kernel path: hoist the int4 stream views
-    # of Phi/PhiT out of the scan (the batched matmuls, the binding cost
-    # at B >= 8, then run at the int4 MXU rate — bit-identical)
-    from ..formats import QMat4
-    from ..kernels.dispatch import pallas_enabled
-    from ..kernels.mvm import _mode, mat4_i4_stream, mvm_i4_enabled
-    from ..kernels.mvm_batched import mvm_batched_pallas_eligible
-    a_i4s = (None, None)
-    leaf = jax.tree_util.tree_leaves(xs0)[0]
-    uk = use_kernel if use_kernel is not None else True
-    if (uk and pallas_enabled() and mvm_i4_enabled()
-            and isinstance(Phi, QMat4) and _mode(Phi, xs0) == "4x4"
-            and mvm_batched_pallas_eligible(Phi, leaf.shape, "4x4")
-            and mvm_batched_pallas_eligible(PhiT, leaf.shape, "4x4")):
-        a_i4s = (mat4_i4_stream(Phi), mat4_i4_stream(PhiT))
+    seed0 = _core.seed_from(key)[0] if key is not None else None
 
     def body(xs, it):
-        seed = (seed0 + it * jnp.int32(SEED_GOLD)
+        seed = (seed0 + it * jnp.int32(_core.SEED_GOLD)
                 if seed0 is not None else None)
-        xs = _iteration_b(Phi, PhiT, ys, xs, mu, k, seed, use_kernel,
-                          a_i4s)
+        xs = _iteration_b(Phi, PhiT, ys, xs, mu, k, seed)
         if xs_star is not None:
             xh = jax.vmap(lambda x: restore_vec(x).values)(xs)
             err = jnp.linalg.norm(xh - star32, axis=-1) / star_norm
@@ -117,28 +85,21 @@ def _initial_xs(Phi, ys):
 
 
 def iht_batched(Phi, PhiT, ys, iterations: int, k: int, mu: float,
-                key=None, xs_star=None, use_kernel=None
-                ) -> BatchSolveResult:
+                key=None, xs_star=None) -> BatchSolveResult:
     """Quantized IHT over a batch of observation vectors.
 
     ``ys`` is a stacked quantized vector container (leading batch dim,
     as built by ``jax.tree.map(lambda *a: jnp.stack(a), *vec_list)``);
     every problem shares ``Phi``/``PhiT``/``mu``/``k``.  ``xs_star``
-    (stacked QVec32, optional) enables per-problem error traces.
-    ``use_kernel``: forwarded to mvm_batched — a caller with Phi/PhiT
-    SHARDED over a mesh must pass False (inside the jitted solve the
-    sharding is invisible, so auto-select would pick the pallas kernel
-    and gather the matrix onto one chip)."""
+    (stacked QVec32, optional) enables per-problem error traces."""
     xs0 = _initial_xs(Phi, ys)
     return _solve_b(Phi, PhiT, ys, xs0, xs_star, iterations, int(k),
-                    jnp.float32(mu), key, use_kernel)
+                    jnp.float32(mu), key)
 
 
 def gd_batched(Phi, PhiT, ys, iterations: int, mu: float,
-               key=None, xs_star=None, use_kernel=None
-               ) -> BatchSolveResult:
-    """Quantized gradient descent over a batch of observation vectors
-    (``use_kernel``: see iht_batched)."""
+               key=None, xs_star=None) -> BatchSolveResult:
+    """Quantized gradient descent over a batch of observation vectors."""
     xs0 = _initial_xs(Phi, ys)
     return _solve_b(Phi, PhiT, ys, xs0, xs_star, iterations, None,
-                    jnp.float32(mu), key, use_kernel)
+                    jnp.float32(mu), key)

@@ -31,7 +31,7 @@ def make_iht_problem(m: int, n: int, k: int, seed: int = DEFAULT_SEED):
     phi = jax.random.uniform(k_phi, (m, n), jnp.float32, -1.0, 1.0)
     x = jnp.zeros((n,), jnp.float32).at[
         jax.random.permutation(k_perm, n)[:k]].set(1.0)
-    y = phi @ x
+    y = jnp.dot(phi, x, precision=jax.lax.Precision.HIGHEST)
     return phi, x, y
 
 
@@ -142,5 +142,5 @@ def make_gd_problem(m: int, n: int, seed: int = DEFAULT_SEED):
     phi = jax.random.uniform(k_phi, (m, n), jnp.float32, -1.0, 1.0)
     phi = phi / jnp.linalg.norm(phi, axis=1, keepdims=True)
     x = jnp.where(jax.random.uniform(k_x, (n,)) < 0.5, -1.0, 1.0)
-    y = phi @ x
+    y = jnp.dot(phi, x, precision=jax.lax.Precision.HIGHEST)
     return phi, x, y

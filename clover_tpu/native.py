@@ -2,7 +2,7 @@
 
 The device compute path is JAX/Pallas; this is the native CPU side — a
 fast quantizer / data-loader producing bit-compatible packed containers
-(so hosts can stage quantized datasets for TPU ingestion at 1/8 the
+(so hosts can stage quantized datasets for the device at 1/8 the
 transfer size) and an independent C++ implementation of the golden
 semantics for cross-validation.
 

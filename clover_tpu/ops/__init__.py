@@ -1,5 +1,5 @@
-"""Quantized linear-algebra ops (XLA paths; Pallas overrides the TPU hot
-paths via clover_tpu.kernels)."""
+"""Quantized linear-algebra ops (plain XLA; on a GPU the MVM family runs
+the Triton kernel in clover_tpu.kernels for the shapes it takes)."""
 
 from .access import (
     mat_get, random_floats, random_integers, vec_get, vec_get_code,

@@ -1,8 +1,7 @@
-"""Shared jnp primitives for the quantized ops (XLA production path).
+"""Shared jnp primitives for the quantized ops.
 
 These implement the same math as :mod:`clover_tpu.golden` but vectorized
-over packed containers.  The Pallas kernels in :mod:`clover_tpu.kernels`
-override the hot paths on TPU; everything here runs on any backend.
+over packed containers; everything here runs on any backend.
 """
 
 from __future__ import annotations
@@ -14,6 +13,29 @@ from ..formats import BLOCK
 
 _QMAX = {4: 7.0, 8: 127.0}
 
+# Large odd constants for deriving per-op SR seed streams by integer
+# arithmetic (no threefry on the solver loop's critical path).
+SEED_GOLD = -1640531527           # 0x9E3779B9 as int32 (golden-ratio mix)
+SEED_OP = 40503                   # per-op stride within an iteration
+
+
+def seed_from(key):
+    """Normalize an SR randomness argument to (int32[1] seed, noise_flag).
+
+    Accepts: None (deterministic), a Python int, an int32 scalar/(1,)
+    array (cheap carried seed — the solver hot path), or a JAX PRNG key
+    (one threefry draw to derive the seed).
+    """
+    if key is None:
+        return jnp.zeros((1,), jnp.int32), False
+    if isinstance(key, int):
+        return jnp.asarray([key], jnp.int32), True
+    arr = jnp.asarray(key)
+    if arr.dtype == jnp.int32:
+        return arr.reshape(1), True
+    return jax.lax.bitcast_convert_type(
+        jax.random.bits(key, (1,), jnp.uint32), jnp.int32), True
+
 
 def qmax(bits: int) -> float:
     return _QMAX[bits]
@@ -23,7 +45,7 @@ def f16_rounded(x32: jax.Array) -> jax.Array:
     """f32 -> f16 with the rounding GUARANTEED to happen.
 
     XLA folds a convert(f32->f16) whose consumer converts straight back
-    to f32 into identity — measured on TPU: inside one jit,
+    to f32 into identity — inside one jit,
     ``x.astype(f16).astype(f32)`` returns the unrounded f32 for 99.8%
     of random inputs.  Inside a fused solver loop that silently
     deleted the fp16 quantization of every intermediate (t1/t2/t3),

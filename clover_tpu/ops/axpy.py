@@ -22,10 +22,6 @@ def scale_and_add(u, v, a, key=None):
     are the same function here (functional style).
     """
     assert type(u) is type(v), f"precision mismatch: {type(u)} vs {type(v)}"
-    from ..kernels import pallas_enabled
-    from ..kernels.quantize import axpy_pallas, axpy_pallas_eligible
-    if pallas_enabled() and axpy_pallas_eligible(u, v):
-        return axpy_pallas(u, v, a, key)
     uf = restore_vec(u).values
     vf = restore_vec(v).values
     x = uf + jnp.float32(a) * vf

@@ -3,7 +3,7 @@ CloverVector8.h:268-330 & :911-977, CloverVector16.h:193-253 & :473-530).
 
 Semantics: per 64-element block, exact integer accumulation of code
 products (the reference keeps these in int16 via ``maddubs``; we use int32
-via XLA's integer dot which the MXU executes natively), then an f32 combine
+via XLA's integer dot), then an f32 combine
 with ``(su/qmax) * (sv/qmax)`` per block.
 """
 
@@ -31,14 +31,10 @@ def dot(u, v) -> jax.Array:
         return jnp.dot(uf, vf, preferred_element_type=jnp.float32)
 
     assert u.bits == v.bits, "mixed 4/8 dot not in the reference API"
-    from ..kernels import pallas_enabled
-    from ..kernels.dot import dot_pallas, dot_pallas_eligible
-    if pallas_enabled() and dot_pallas_eligible(u, v):
-        return dot_pallas(u, v)
     qm = _core.qmax(u.bits)
     ub = _codes(u).reshape(-1, BLOCK)
     vb = _codes(v).reshape(-1, BLOCK)
-    # Exact per-block integer dot; MXU int8 path via dot_general.
+    # Exact per-block integer dot.
     acc = jax.lax.dot_general(
         ub[:, None, :], vb[:, :, None],
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),

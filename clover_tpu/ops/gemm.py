@@ -1,17 +1,14 @@
-"""Batched MVM / quantized GEMM — the TPU-native generalization the MXU
-wants (SURVEY §7.3).  The reference is strictly matrix-VECTOR (one RHS per
-call, an AVX2-era design); on TPU, serving and solver batching want many
-RHS at once so the MXU runs dense.
+"""Batched MVM / quantized GEMM (SURVEY §7.3).  The reference is strictly
+matrix-VECTOR (one RHS per call, an AVX2-era design); serving and solver
+batching want many RHS at once.
 
 ``mvm_batched``: y_i = requantize(A @ x_i) for a batch of quantized
-vectors — a fused batched Pallas kernel on TPU (one matrix stream per
-batch, kernels/mvm_batched.py), a vmapped per-vector path elsewhere
-(each column's output blocks are requantized independently, identical
-semantics to per-vector mvm within 1 output LSB).
+vectors — a vmap of the per-vector plain MVM (each column's output blocks
+are requantized independently, identical semantics to per-vector mvm).
 
-``gemm_f32``: C = restore(A) @ B for f32 B — blocked MXU matmuls with the
+``gemm_f32``: C = restore(A) @ B for f32 B — blocked matmuls with the
 dequantization folded into the per-block scale combine (no restored copy
-of A is ever materialized in HBM).
+of A is ever materialized).
 """
 
 from __future__ import annotations
@@ -19,72 +16,28 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..formats import BLOCK, QMat4, QMat16, QMat32, unpack_nibbles
+from ..formats import BLOCK, QMat16, QMat32, QMat4, unpack_nibbles
 from . import _core
 from .mvm import _out_bits, _requant_output, mvm_f32
 
 
-def _single_device(arr) -> bool:
-    """True when ``arr`` is concrete on one device.  A mesh-sharded
-    matrix must stay on the GSPMD-partitioned fallback: a pallas_call
-    has no SPMD partitioning rule, so XLA would gather the whole matrix
-    onto one chip.  Tracers return True (sharding is invisible at trace
-    time) — a jit caller with a SHARDED matrix must pass
-    ``use_kernel=False`` explicitly."""
-    try:
-        return len(arr.sharding.device_set) == 1
-    except Exception:
-        return True
-
-
-def mvm_batched(A, xs, key=None, use_kernel: bool | None = None,
-                a_i4=None):
+def mvm_batched(A, xs, key=None):
     """Fused MVM over a batch of quantized vectors.
 
     ``xs`` is a quantized vector container whose arrays carry a leading
     batch dimension (stack per-vector containers with
     ``jax.tree.map(lambda *a: jnp.stack(a), *vecs)``).  Returns a
-    container with the same leading batch dimension.
-
-    On TPU the whole batch rides ONE Pallas kernel launch and ONE HBM
-    stream of the packed matrix (kernels/mvm_batched.py) — the
-    single-vector MVM is DMA-bound, so extra vectors are nearly free
-    until the batched matmuls outgrow the stream time.  Elsewhere (or
-    for ineligible shapes) it falls back to a vmapped per-vector path.
-
-    ``use_kernel``: None (default) auto-selects — the kernel when the
-    matrix is concrete on one device, the fallback when it is concrete
-    and mesh-sharded.  Under ``jit`` the matrix is a tracer and its
-    sharding is invisible, so auto assumes single-device; a jit caller
-    with a SHARDED matrix must pass ``use_kernel=False`` (the GSPMD
-    fallback partitions correctly; the kernel would gather the matrix
-    onto one chip).  True forces the kernel (subject to eligibility).
+    container with the same leading batch dimension.  With SR on, vector
+    ``j`` draws its noise from seed ``seed + j``.
     """
-    from ..kernels import pallas_enabled
-    from ..kernels.mvm import _mode, mvm_pallas, mvm_pallas_eligible
-    from ..kernels.mvm_batched import (
-        mvm_batched_pallas, mvm_batched_pallas_eligible)
     leaf = jax.tree_util.tree_leaves(xs)[0]
-    mode = _mode(A, xs)          # container types carry the mode
-    if use_kernel is None:
-        use_kernel = _single_device(A.codes)
-    if pallas_enabled() and use_kernel:
-        if mvm_batched_pallas_eligible(A, leaf.shape, mode):
-            return mvm_batched_pallas(A, xs, key=key, a_i4=a_i4)
-        if leaf.shape[0] == 1:
-            x0 = jax.tree.map(lambda a: a[0], xs)
-            if mvm_pallas_eligible(A, x0):
-                y = mvm_pallas(A, x0, key=key)
-                return jax.tree.map(lambda a: a[None], y)
-
     out_bits = _out_bits(A, xs)
     keys = None
     if key is not None:
         # normalize like every other op (seed_from accepts PRNG keys OR
         # the solvers' carried int32 seeds — jax.random.split would
         # reject the latter) and give each vector its own seed
-        from ..kernels.dispatch import seed_from
-        seed = seed_from(key)[0]
+        seed = _core.seed_from(key)[0]
         keys = (seed[None, :]
                 + jnp.arange(leaf.shape[0], dtype=jnp.int32)[:, None])
 
@@ -104,28 +57,11 @@ def mvm_batched_f32(A, xs) -> jax.Array:
     return jax.vmap(lambda x: mvm_f32(A, x))(xs)
 
 
-def mvm_batched_f32_fast(A, xs) -> jax.Array:
-    """Like :func:`mvm_batched_f32` but dispatched to the fused batched
-    kernel's f32-output mode on TPU (kernels/mvm_batched.py) — the
-    per-shard hot path of parallel/ops.mvm_batched_psum."""
-    from ..kernels import pallas_enabled
-    from ..kernels.mvm import _mode
-    from ..kernels.mvm_batched import (
-        mvm_batched_pallas_eligible, mvm_batched_pallas_f32)
-    leaf = jax.tree_util.tree_leaves(xs)[0]
-    mode = _mode(A, xs)
-    if (pallas_enabled()
-            and mvm_batched_pallas_eligible(A, leaf.shape, mode)):
-        return mvm_batched_pallas_f32(A, xs)
-    return mvm_batched_f32(A, xs)
-
-
 def gemm_f32(A, B: jax.Array) -> jax.Array:
     """C = restore(A) @ B with B f32[n, r]; f32[m_pad, r] out.
 
-    Quantized A is dequantized on the fly: codes are exact in bf16, the
-    per-tile scale is applied to the int-accumulated per-block partials —
-    one dot_general per 64-block batch, all on the MXU.
+    Quantized A is dequantized on the fly: the per-tile scale is applied
+    to the per-block partials — one batched dot_general over the 64-blocks.
     """
     if isinstance(A, (QMat16, QMat32)):
         return jnp.dot(A.values.astype(jnp.float32), B,
@@ -140,8 +76,8 @@ def gemm_f32(A, B: jax.Array) -> jax.Array:
     b3 = B.reshape(nb, BLOCK, -1).astype(jnp.float32)
     # (nb, m, r) per-block partials in f32 (B stays full precision,
     # matching the reference's dequant-on-the-fly x32 semantics).
-    # HIGHEST keeps true f32 matmul mantissas — the TPU default would
-    # round the x32 path to bf16 precision (reference does f32 FMA).
+    # HIGHEST keeps true f32 matmul mantissas — the GPU default would
+    # round the x32 path through TF32 (reference does f32 FMA).
     part = jax.lax.dot_general(
         a3, b3, (((2,), (1,)), ((1,), (0,))),
         preferred_element_type=jnp.float32,

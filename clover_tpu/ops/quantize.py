@@ -5,7 +5,7 @@ Re-creates the reference's ``quantize``/``restore`` families
 CloverMatrix4.h:512-777, CloverMatrix8.h:203-265, CloverMatrix16.h:383-423)
 as functional ops over pytree containers.  Stochastic rounding is driven by
 an explicit JAX PRNG key (``key=None`` = deterministic truncation, the
-TPU-native equivalent of the reference's SR-disabled validation build).
+equivalent of the reference's SR-disabled validation build).
 """
 
 from __future__ import annotations
@@ -45,11 +45,6 @@ def quantize_vec(x, bits: int, key=None):
         return QVec32(values=xp, length=length)
     if bits == 16:
         return QVec16(values=_core.f16_rounded(xp), length=length)
-    from ..kernels import pallas_enabled
-    from ..kernels.quantize import (
-        quantize_vec_pallas, quantize_vec_pallas_eligible)
-    if pallas_enabled() and quantize_vec_pallas_eligible(xp.shape[-1]):
-        return quantize_vec_pallas(xp, length, bits, key)
     scales = _core.block_scales(xp)
     per_elem = jnp.repeat(scales, BLOCK)
     noise = _core.noise_like(key, xp.shape)
@@ -65,10 +60,6 @@ def restore_vec(q) -> QVec32:
         return q
     if isinstance(q, QVec16):
         return QVec32(values=q.values.astype(jnp.float32), length=q.length)
-    from ..kernels import pallas_enabled
-    from ..kernels.restore import restore_vec_pallas, restore_vec_pallas_eligible
-    if pallas_enabled() and restore_vec_pallas_eligible(q):
-        return restore_vec_pallas(q)
     codes = unpack_nibbles(q.codes) if isinstance(q, QVec4) else q.codes
     mult = _core.expand_vec_scales(q.scales, q.bits)
     return QVec32(values=codes.astype(jnp.float32) * mult, length=q.length)
@@ -85,11 +76,6 @@ def quantize_mat(a, bits: int, key=None):
         return QMat32(values=ap, rows=rows, cols=cols)
     if bits == 16:
         return QMat16(values=_core.f16_rounded(ap), rows=rows, cols=cols)
-    from ..kernels import pallas_enabled
-    from ..kernels.quantize import (
-        quantize_mat_pallas, quantize_mat_pallas_eligible)
-    if pallas_enabled() and quantize_mat_pallas_eligible(*ap.shape):
-        return quantize_mat_pallas(ap, rows, cols, bits, key)
     scales = _core.tile_scales(ap)
     per_elem = jnp.repeat(jnp.repeat(scales, BLOCK, axis=0), BLOCK, axis=1)
     noise = _core.noise_like(key, ap.shape)
@@ -105,10 +91,6 @@ def restore_mat(q) -> QMat32:
     if isinstance(q, QMat16):
         return QMat32(values=q.values.astype(jnp.float32),
                       rows=q.rows, cols=q.cols)
-    from ..kernels import pallas_enabled
-    from ..kernels.restore import restore_mat_pallas, restore_mat_pallas_eligible
-    if pallas_enabled() and restore_mat_pallas_eligible(q):
-        return restore_mat_pallas(q)
     codes = unpack_nibbles(q.codes) if isinstance(q, QMat4) else q.codes
     mult = _core.expand_tile_scales(q.scales, q.bits)
     return QMat32(values=codes.astype(jnp.float32) * mult,

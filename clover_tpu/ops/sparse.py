@@ -5,9 +5,9 @@ threshold), y = Phi x = sum over the K nonzero j of x_j * Phi[:, j] —
 equivalently, with the transposed matrix materialized (as IHT already
 does), y = sum x_j * PhiT[j, :] over rows, which are contiguous.
 
-TPU-native design: rows of PhiT are byte-aligned even in the packed 4-bit
+Design: rows of PhiT are byte-aligned even in the packed 4-bit
 layout, so this is one gather (``jnp.take`` of K rows), an in-register
-dequant, and a (K x n) matmul with the K nonzero values — O(K*n) HBM
+dequant, and a (K x n) matmul with the K nonzero values — O(K*n) memory
 traffic instead of O(m*n).  Requires static K (JAX shapes), which IHT has.
 """
 

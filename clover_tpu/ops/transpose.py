@@ -7,16 +7,9 @@ CloverMatrix32.h:181-216.
 Because tile scales are per 64x64 block, transposing values and transposing
 the scale grid commute exactly: ``T(A).get(i,j) == A.get(j,i)`` bit-for-bit
 (the reference validates exactly this, test/validate/03_matrix.cpp:153-245).
-On TPU the nibble relayout is a pack/unpack pair around ``jnp.transpose``
-(an XLA copy at HBM bandwidth) — there is no AVX2-style in-register shuffle
-to re-create.
-
-fp16 stays on the XLA relayout deliberately: Mosaic has no f16 type, and
-an int16-bitcast Pallas transpose (676 GB/s raw at n=16K vs XLA's 330)
-loses its entire gain at the op boundary — the f16<->int16
-``bitcast_convert_type`` around the pallas_call materializes full copies
-(custom-call operands cannot fuse producers), measured right back at
-330 GB/s end to end.
+Here the nibble relayout is a pack/unpack pair around ``jnp.transpose``,
+which XLA fuses into one copy; transposes are one-time setup (the
+solvers materialize PhiT up front, as the reference does).
 """
 
 from __future__ import annotations
@@ -27,12 +20,6 @@ from ..formats import QMat4, QMat8, QMat16, QMat32, pack_nibbles, unpack_nibbles
 
 
 def transpose(A):
-    if isinstance(A, (QMat4, QMat8)):
-        from ..kernels import pallas_enabled
-        from ..kernels.transpose import (
-            transpose_pallas, transpose_pallas_eligible)
-        if pallas_enabled() and transpose_pallas_eligible(A):
-            return transpose_pallas(A)
     if isinstance(A, QMat4):
         codes = unpack_nibbles(A.codes)
         return QMat4(codes=pack_nibbles(codes.T), scales=A.scales.T,

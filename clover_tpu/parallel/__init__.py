@@ -1,6 +1,6 @@
 """Mesh-sharded execution: sharding rules, per-shard collective ops, and
-distributed GD/IHT solvers (ICI psum replaces the reference's OpenMP
-shared-memory combines)."""
+distributed GD/IHT solvers (a psum over the interconnect replaces the
+reference's OpenMP shared-memory combines)."""
 
 from .mesh import COL, ROW, make_mesh, shard_matrix, shard_vector
 from .multihost import initialize, is_coordinator, pod_mesh

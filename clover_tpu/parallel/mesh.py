@@ -1,7 +1,7 @@
 """Device mesh construction and container sharding rules.
 
 The reference's only parallelism is single-node OpenMP over contiguous
-block ranges (SURVEY §2.5).  The TPU-native scale-out: a 2-D
+block ranges (SURVEY §2.5).  The scale-out here: a 2-D
 ("row", "col") mesh; matrices sharded over both axes, vectors over the
 axis that matches their role in the MVM dataflow:
 
@@ -11,7 +11,7 @@ axis that matches their role in the MVM dataflow:
     y,t1,t2 : P(row)     (length m)
 
 With this layout the whole IHT/GD iteration needs exactly two psums (one
-per MVM, over ICI) and zero resharding — the quantized partial products
+per MVM) and zero resharding — the quantized partial products
 are reduced BEFORE output requantization so the band absmax sees the
 globally-reduced values (the key correctness subtlety vs the single-node
 reference, SURVEY §7.6).

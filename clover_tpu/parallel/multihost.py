@@ -1,15 +1,14 @@
 """Multi-host initialization and pod-level mesh construction.
 
 The reference has no distributed layer (SURVEY §2.5); this is the
-framework's scale-out entry point: ``jax.distributed`` over DCN for
-process coordination, with the ("row", "col") compute mesh laid out so
-that MVM psums ride ICI within a host/slice and only gradient-free
-container movement crosses DCN.
+framework's scale-out entry point: ``jax.distributed`` for process
+coordination, with the ("row", "col") compute mesh laid out so that MVM
+psums stay on the fast links within a host and only gradient-free
+container movement crosses hosts.
 
 Testable single-host via the CPU device simulation
-(XLA_FLAGS=--xla_force_host_platform_device_count=N); on a real pod pass
-coordinator_address/num_processes/process_id or rely on the TPU
-auto-bootstrap (jax.distributed.initialize with no args).
+(XLA_FLAGS=--xla_force_host_platform_device_count=N); on real hosts pass
+coordinator_address/num_processes/process_id.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Mesh-sharded GD / IHT: the whole solve (scan included) runs inside one
 ``shard_map`` region, so every iteration is two local fused MVMs, two
-ICI psums, local AXPYs, and one gathered top-K merge — zero resharding.
+psums, local AXPYs, and one gathered top-K merge — zero resharding.
 
 Dataflow (mesh axes "row" x "col"; see parallel/mesh.py):
     Phi  P(row,col) @ x P(col)  --psum col-->  t1 P(row)
@@ -28,7 +28,7 @@ except ImportError:  # pragma: no cover
 
 from ..formats import QMat16, QMat32, QVec16, QVec32, zeros_vector
 from ..models.solvers import SolveResult
-from ..ops import scale_and_add
+from ..ops import _core, scale_and_add
 from ..ops.mvm import mvm_axpy
 from .mesh import COL, ROW
 from .ops import axis_key, mvm_psum, norm2_psum, threshold_global
@@ -94,67 +94,23 @@ def _solve_sharded(qphi, qphit, qy, x0, x_star, iterations: int, k, mu,
 
         # One threefry draw up front; per-iteration/per-op seeds are then
         # integer strides (models/solvers.py uses the same scheme).
-        from ..kernels.dispatch import SEED_GOLD, SEED_OP, seed_from
-        seed0 = seed_from(k0)[0] if k0 is not None else None
-
-        # ICI/compute-overlap auto-dispatch (VERDICT r4 item 5): the
-        # chunk model (parallel/ops.pick_psum_chunks) decides per leg
-        # from static shard shapes + the link-bandwidth estimate; when
-        # it picks > 1, the column-chunk containers are prepared ONCE
-        # here (hoisted out of the scan — unprepared slices pay a full
-        # local-matrix copy per iteration).  On pure-ICI v5e meshes the
-        # model always returns 1 and the plain psum path runs.
-        from .ops import mvm_psum_overlapped, pick_psum_chunks, \
-            prepare_psum_chunks
-        ck1 = (pick_psum_chunks(phi.rows_pad, phi.cols_pad, C,
-                                bits=phi.bits) if C > 1 else 1)
-        ck2 = (pick_psum_chunks(phit.rows_pad, phit.cols_pad, R,
-                                bits=phit.bits) if R > 1 else 1)
-        phi_ck = prepare_psum_chunks(phi, ck1) if ck1 > 1 else None
-        phit_ck = prepare_psum_chunks(phit, ck2) if ck2 > 1 else None
-
-        # pure-4-bit shards: int4 stream views of the LOCAL Phi/PhiT,
-        # hoisted out of the scan (same trick as models/solvers) so
-        # every multi-chip MVM leg runs the single-int4-matmul kernel
-        from ..formats import QMat4 as _QMat4
-        from ..kernels.dispatch import pallas_enabled as _pe
-        from ..kernels.mvm import mat4_i4_stream, mvm_i4_enabled
-        i4_phi = i4_phit = None
-        if (_pe() and mvm_i4_enabled() and isinstance(phi, _QMat4)
-                and y.bits == 4 and x_init.bits == 4):
-            i4_phi = mat4_i4_stream(phi)
-            i4_phit = mat4_i4_stream(phit)
-
-        def _psum_leg(A_l, x_l, axis, kk, bits_out, owner, ck, prep,
-                      a_i4=None):
-            if ck > 1:
-                # the chunked containers are column slices — their int4
-                # views would need per-chunk relayouts; the overlapped
-                # path only engages for DCN-class links where the psum,
-                # not the matmul, is the cost
-                return mvm_psum_overlapped(A_l, x_l, axis, kk, bits_out,
-                                           owner, chunks=ck,
-                                           prepared=prep)
-            return mvm_psum(A_l, x_l, axis, kk, bits_out, owner,
-                            a_i4=a_i4)
+        seed0 = _core.seed_from(k0)[0] if k0 is not None else None
 
         def body(x, it):
             if seed0 is not None:
-                base = seed0 + it * jnp.int32(SEED_GOLD)
-                ks = [base + (j + 1) * jnp.int32(SEED_OP) for j in range(4)]
+                base = seed0 + it * jnp.int32(_core.SEED_GOLD)
+                ks = [base + (j + 1) * jnp.int32(_core.SEED_OP)
+                      for j in range(4)]
             else:
                 base = None
                 ks = (None,) * 4
             if R == 1 and C == 1:
-                # no collectives anywhere: run the SINGLE-CHIP iteration
-                # (fused MVM+AXPY epilogues; whole-iteration kernel when
-                # eligible) — bit-identical to models.solvers on a 1x1
-                # mesh, and ~3.5x faster than the decomposed path below
-                # was (r3 VERDICT item 4).  threshold_global over one
-                # shard equals the local threshold.
+                # no collectives anywhere: run the single-device
+                # iteration (fused MVM+AXPY epilogues) — bit-identical to
+                # models.solvers on a 1x1 mesh.  threshold_global over
+                # one shard equals the local threshold.
                 from ..models.solvers import _iteration
-                x = _iteration(phi, phit, y, x, mu, k, base,
-                               (i4_phi, i4_phit))
+                x = _iteration(phi, phit, y, x, mu, k, base)
             else:
                 x = _decomposed(x, ks)
             if xs is not None:
@@ -171,20 +127,16 @@ def _solve_sharded(qphi, qphit, qy, x0, x_star, iterations: int, k, mu,
                 # epilogue (per-shard SR streams still folded by row)
                 t2 = mvm_axpy(phi, x, y, -1.0,
                               key_mvm=axis_key(ks[0], ROW),
-                              key_axpy=axis_key(ks[1], ROW),
-                              a_i4=i4_phi)
+                              key_axpy=axis_key(ks[1], ROW))
             else:
-                t1 = _psum_leg(phi, x, COL, ks[0], t_bits, ROW,
-                               ck1, phi_ck, a_i4=i4_phi)
+                t1 = mvm_psum(phi, x, COL, ks[0], t_bits, ROW)
                 t2 = scale_and_add(y, t1, -1.0, key=axis_key(ks[1], ROW))
             if R == 1:
                 x = mvm_axpy(phit, t2, x, mu,
                              key_mvm=axis_key(ks[2], COL),
-                             key_axpy=axis_key(ks[3], COL),
-                             a_i4=i4_phit)
+                             key_axpy=axis_key(ks[3], COL))
             else:
-                t3 = _psum_leg(phit, t2, ROW, ks[2], x_bits, COL,
-                               ck2, phit_ck, a_i4=i4_phit)
+                t3 = mvm_psum(phit, t2, ROW, ks[2], x_bits, COL)
                 x = scale_and_add(x, t3, mu, key=axis_key(ks[3], COL))
             if k is not None:
                 x = threshold_global(x, k, COL)

@@ -1,11 +1,10 @@
 """Continuous-batching MVM server (BASELINE.json north-star component).
 
-The reference is a synchronous library; a production TPU deployment
-serves many concurrent quantized-MVM requests against a resident matrix.
-This server implements continuous batching: requests accumulate in a
-queue, a dispatcher thread packs up to ``max_batch`` of them into one
-stacked container, runs a single fused batched MVM (ops/gemm.mvm_batched
-— one MXU pass over the resident matrix for the whole batch), and
+The reference is a synchronous library; a production deployment serves
+many concurrent quantized-MVM requests against a resident matrix.  This
+server implements continuous batching: requests accumulate in a queue, a
+dispatcher thread packs up to ``max_batch`` of them into one stacked
+container, runs one jitted batched MVM (ops/gemm.mvm_batched), and
 resolves each request's future.
 
 Batch sizes are bucketed to powers of two so XLA compiles a bounded set
@@ -35,10 +34,10 @@ class MVMServer:
     def __init__(self, qA, max_batch: int = 8, max_wait_s: float = 0.002,
                  key=None, mesh=None):
         """``mesh``: pass the mesh the matrix is sharded over (via
-        parallel.shard_matrix) to serve through the fused-kernel sharded
-        path — per-shard batched kernel in f32-output mode + psum + band
-        requant (parallel/ops.mvm_batched_psum) under shard_map, instead
-        of the GSPMD fallback."""
+        parallel.shard_matrix) to serve through shard_map — per-shard
+        batched f32 partials + psum + band requant
+        (parallel/ops.mvm_batched_psum) — instead of leaving the
+        partitioning to GSPMD."""
         assert max_batch in _BUCKETS
         self._qA = qA
         self._max_batch = max_batch
@@ -46,6 +45,7 @@ class MVMServer:
         self._key = key
         self._mesh = mesh
         self._sharded_fns: dict = {}
+        self._mvm = jax.jit(mvm_batched)
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -126,15 +126,14 @@ class MVMServer:
         if self._mesh is not None:
             ys = self._mvm_sharded(xs, sub)
         else:
-            ys = mvm_batched(self._qA, xs, key=sub)
+            ys = self._mvm(self._qA, xs, key=sub)
         for i, (_, fut) in enumerate(batch):
             yi = jax.tree.map(lambda a: a[i], ys)
             fut.set_result(yi)
 
     def _mvm_sharded(self, xs, key):
-        """shard_map'ed batched MVM: fused kernel per shard (f32-output
-        mode) -> psum over the col axis -> per-vector band requant owned
-        by the row axis.  The function is built once per (vector type,
+        """shard_map'ed batched MVM: f32 partials per shard -> psum over
+        the col axis -> per-vector band requant owned by the row axis.  The function is built once per (vector type,
         bucket, keyed) and jitted."""
         from jax.sharding import PartitionSpec as P
         from .ops.mvm import _out_bits

@@ -1,7 +1,7 @@
 """Checkpoint / resume for quantized containers and solver state.
 
 The reference persists nothing (SURVEY §5: every error path is exit(1),
-the only saved state is grid-search logs).  A production TPU framework
+the only saved state is grid-search logs).  A production framework
 needs real checkpointing: containers are registered pytrees, so Orbax
 handles them natively — including sharded containers on a mesh (each host
 writes its shards).

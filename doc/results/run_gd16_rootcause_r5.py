@@ -4,10 +4,10 @@ Reproduces, in order: (1) NumPy fp16-GD emulations (f32/f64
 accumulation) on the bit-exact instance — both converge like the
 reference; (2) the XLA convert-elision probe (f32->f16->f32 inside one
 jit returns unrounded values); (3) the fixed production trajectory.
-Run on the real TPU (part 1 is host NumPy).
+Run on an accelerator (part 1 is host NumPy); from the repository root.
 """
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, ".")
 import jax, jax.numpy as jnp, numpy as np
 from clover_tpu.utils.compcache import enable as _cc
 _cc()

@@ -1,14 +1,14 @@
 // clover_host — native host-side runtime for clover_tpu.
 //
 // The reference implements its whole library in C++ (include/*.h); in the
-// TPU framework the device compute path is JAX/Pallas, and this library is
+// JAX framework the device compute path is JAX/Pallas, and this library is
 // the native HOST path: a fast CPU quantizer / data loader producing the
 // exact same packed containers (biased-nibble deinterleaved 4-bit layout,
 // 64-element block scales — see clover_tpu/formats.py), plus the scalar
 // golden semantics (quantize/restore/dot/axpy/threshold/mvm) and the
 // XORShift128+ stochastic-rounding PRNG (simdxorshift128plus.h semantics,
 // re-stated in clover_tpu/rng.py).  Used to stage quantized datasets for
-// TPU ingestion without paying the f32 host->device transfer, and as an
+// the device without paying the f32 host->device transfer, and as an
 // independent cross-check of the Python golden oracle.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).

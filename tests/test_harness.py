@@ -89,6 +89,61 @@ def test_debug_printers():
     assert "[     0]" in format_blocks(np.arange(32))
 
 
+class _Dev:
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+def test_peaks_known_device():
+    from clover_tpu.harness.timing import peaks
+    p = peaks(_Dev("NVIDIA H200"))
+    assert p.hbm_bytes_per_s == 4.8e12
+    assert p.bf16_flops == 989e12 and p.int8_ops == 1979e12
+    assert "H200" in p.source
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3", "cpu", ""])
+def test_peaks_unknown_device_raises(kind):
+    """No assumed peak: a roofline share needs a published one."""
+    from clover_tpu.harness import timing
+    with pytest.raises(KeyError, match="no published peaks"):
+        timing.peaks(_Dev(kind))
+
+
+def test_roofline_share_on_cpu_raises():
+    """The default device here is the host CPU, which has no table entry."""
+    from clover_tpu.harness import timing
+    with pytest.raises(KeyError, match="no published peaks"):
+        timing.pct_roofline(1 << 20, 1e-3)
+
+
+def test_compile_cache_honours_env_dir(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, enable() keeps it and the
+    compiled entries land there and nowhere else."""
+    import os
+    import subprocess
+    import sys
+    env_dir = tmp_path / "jaxcache"
+    fallback = tmp_path / "fallback"
+    code = (
+        "import jax, jax.numpy as jnp\n"
+        "from clover_tpu.utils.compcache import enable\n"
+        f"print(enable({str(fallback)!r}))\n"
+        # a host compile this small is quicker than enable()'s threshold
+        "jax.config.update('jax_persistent_cache_min_compile_time_secs', 0)\n"
+        "jax.jit(lambda v: jnp.cumsum(jnp.sin(v) * 3.0))("
+        "jnp.arange(4096.0)).block_until_ready()\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=str(env_dir))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == str(env_dir)
+    assert any(env_dir.iterdir())
+    assert not fallback.exists()
+
+
 def test_checkpoint_roundtrip(tmp_path):
     from clover_tpu.utils import checkpoint
     q = ct.quantize(jnp.asarray(np.linspace(-1, 1, 256, dtype=np.float32)), 4)

@@ -21,7 +21,7 @@ def _free_port() -> int:
 def test_two_process_sharded_iht():
     port = str(_free_port())
     env = {k: v for k, v in os.environ.items()
-           if k not in ("JAX_PLATFORMS", "XLA_FLAGS", "PALLAS_INTERPRET")}
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     procs = [subprocess.Popen([sys.executable, _WORKER, str(pid), port],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, env=env)

@@ -53,6 +53,64 @@ def test_mvm_batched_matches_loop(rng):
                                       np.asarray(ref.scales))
 
 
+def _stack(qs):
+    return jax.tree.map(lambda *a: jnp.stack(a), *qs)
+
+
+@pytest.mark.parametrize("bits_a,bits_x", [(4, 4), (4, 8), (8, 8)])
+@pytest.mark.parametrize("b", [2, 3, 8])        # 3: non-power-of-two batch
+def test_mvm_batched_matches_single(rng, bits_a, bits_x, b):
+    """Each vector of a batch gets exactly its single-vector MVM."""
+    m, n = 256, 512
+    qA = ct.quantize(jnp.asarray(rng.random((m, n), dtype=np.float32)
+                                 * 2 - 1), bits_a)
+    vecs = [ct.quantize(jnp.asarray(rng.random(n, dtype=np.float32) * 2
+                                    - 1), bits_x) for _ in range(b)]
+    ys = mvm_batched(qA, _stack(vecs))
+    for j, v in enumerate(vecs):
+        want = ct.mvm(qA, v)
+        np.testing.assert_array_equal(np.asarray(ys.codes[j]),
+                                      np.asarray(want.codes))
+        np.testing.assert_array_equal(np.asarray(ys.scales[j]),
+                                      np.asarray(want.scales))
+
+
+@pytest.mark.parametrize("bits_a,bits_x", [(4, 4), (4, 8), (8, 8)])
+def test_mvm_batched_f32_matches_single(rng, bits_a, bits_x):
+    """The batched f32-output form (the sharded server's per-shard
+    partial) equals the per-vector f32 MVM."""
+    from clover_tpu.ops.gemm import mvm_batched_f32
+    m, n, b = 256, 512, 4
+    qA = ct.quantize(jnp.asarray(rng.random((m, n), dtype=np.float32)
+                                 * 2 - 1), bits_a)
+    vecs = [ct.quantize(jnp.asarray(rng.random(n, dtype=np.float32) * 2
+                                    - 1), bits_x) for _ in range(b)]
+    got = np.asarray(mvm_batched_f32(qA, _stack(vecs)))
+    assert got.shape == (b, m)
+    for j, v in enumerate(vecs):
+        np.testing.assert_array_equal(got[j], np.asarray(mvm_f32(qA, v)))
+
+
+def test_mvm_batched_sr_statistics(rng):
+    """With SR on, each vector draws its own stream (seed + j): equal
+    inputs get different codes, and the mean over draws is unbiased."""
+    m, n = 256, 512
+    qA = ct.quantize(jnp.asarray(rng.random((m, n), dtype=np.float32)
+                                 * 2 - 1), 4)
+    qx = ct.quantize(jnp.asarray(rng.random(n, dtype=np.float32) * 2 - 1),
+                     4)
+    y = np.asarray(mvm_f32(qA, qx))
+    outs = []
+    for s in range(4):
+        ys = mvm_batched(qA, _stack([qx] * 4), key=jax.random.PRNGKey(s))
+        outs += [np.asarray(ct.restore(jax.tree.map(lambda a: a[j],
+                                                    ys)).values)
+                 for j in range(4)]
+    assert not np.array_equal(outs[0], outs[1])
+    lsb = np.abs(y).reshape(-1, BLOCK).max(1).repeat(BLOCK) / 7.0
+    assert np.all(np.abs(np.mean(outs, axis=0) - y) <= 0.75 * lsb + 1e-6)
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 def test_gemm_f32_matches_restore_matmul(rng, bits):
     m, n, r = 128, 256, 8
@@ -108,35 +166,41 @@ def test_random_generators_reproducible():
     assert np.all(ints == np.round(ints))
 
 
-def test_threshold4_hybrid_exact(rng, monkeypatch):
-    """r5 hybrid (compressed-multiset top-k selector + streaming mask
-    kernels) must match the wide-view bisect path bit-for-bit, in both
-    its pure-XLA and kernel (interpret) variants, across tie storms and
-    degenerate inputs (doc/results/threshold4_r5.md)."""
+def test_threshold4_hybrid_exact(rng):
+    """The hybrid (compressed-multiset top-k selector + integer-cutoff
+    mask) must match the wide-view bisect path bit-for-bit across tie
+    storms and degenerate inputs, including blocks whose magnitude
+    planes collapse to one f32 value (a scale so small that s/7
+    underflows: every code of the block is a zero-valued tie)."""
     import jax
     import clover_tpu as ct
+    from clover_tpu import golden
+    from clover_tpu.formats import QVec4, pack_nibbles, unpack_nibbles
     from clover_tpu.ops.threshold import (_threshold4_hybrid,
                                           _threshold4_xla)
 
     cases = []
     for (n, k) in ((256, 3), (1024, 64), (4096, 257), (65536, 64)):
         v = (rng.random(n, dtype=np.float32) * 2 - 1)
-        cases.append((v, k))
-        cases.append((rng.integers(-3, 4, n).astype(np.float32), k))
+        cases.append((ct.quantize(jnp.asarray(v), 4), k))
+        cases.append((ct.quantize(jnp.asarray(
+            rng.integers(-3, 4, n).astype(np.float32)), 4), k))
         z = np.zeros(n, np.float32)
         z[rng.permutation(n)[:max(1, k // 2)]] = 1.0
-        cases.append((z, k))                     # k > nnz: tau == 0
-    for use_kernels in (False, True):
-        if use_kernels:
-            monkeypatch.setenv("CLOVER_PALLAS", "1")
-        else:
-            monkeypatch.delenv("CLOVER_PALLAS", raising=False)
-        for v, k in cases:
-            q = ct.quantize(jnp.asarray(v), 4)
-            a = jax.jit(_threshold4_xla, static_argnums=1)(q, k)
-            b = jax.jit(_threshold4_hybrid, static_argnums=1)(q, k)
-            assert np.array_equal(np.asarray(a.codes),
-                                  np.asarray(b.codes)), (len(v), k,
-                                                         use_kernels)
-            assert np.array_equal(np.asarray(a.scales),
-                                  np.asarray(b.scales))
+        cases.append((ct.quantize(jnp.asarray(z), 4), k))   # tau == 0
+    for n, k in ((4096, 200), (4096, 40)):
+        codes = rng.integers(-7, 8, n).astype(np.int8)
+        scales = np.full(n // 64, 1e-45, np.float32)        # s/7 -> 0
+        scales[:2] = [1.0, 0.5]
+        cases.append((QVec4(codes=pack_nibbles(jnp.asarray(codes)),
+                            scales=jnp.asarray(scales), length=n), k))
+    for q, k in cases:
+        a = jax.jit(_threshold4_xla, static_argnums=1)(q, k)
+        b = jax.jit(_threshold4_hybrid, static_argnums=1)(q, k)
+        assert np.array_equal(np.asarray(a.codes),
+                              np.asarray(b.codes)), (q.length, k)
+        assert np.array_equal(np.asarray(a.scales), np.asarray(b.scales))
+        want = golden.threshold(np.asarray(unpack_nibbles(q.codes)),
+                                np.asarray(q.scales), k, q.length, 4)
+        np.testing.assert_array_equal(
+            np.asarray(unpack_nibbles(b.codes)), want)

@@ -298,23 +298,33 @@ def test_sharded_iteration_exact_cross_check(mesh, bits):
 
 
 def test_mvm_psum_fused_kernel_interpret(mesh, monkeypatch):
-    """Same exact cross-check with the fused Pallas kernel forced into
-    the sharded loop (interpret mode on the CPU mesh): mvm_f32_fast
-    must dispatch to mvm_pallas_f32 and still match bit-for-bit."""
-    from clover_tpu.kernels import mvm_pallas_eligible
+    """Same exact cross-check with the fused Triton kernel (interpret
+    mode) as each shard's partial: on a GPU mvm_f32_fast dispatches to
+    kernels.mvm.mvm_f32 inside shard_map and still matches bit-for-bit."""
+    import importlib
+    from clover_tpu.formats import QMat4, QVec4
+    from clover_tpu.kernels import mvm as kmvm
 
-    monkeypatch.setenv("CLOVER_PALLAS", "1")
-    qA, qx, want = _integer_mvm_problem()
+    ops_mvm = importlib.import_module("clover_tpu.ops.mvm")
+    calls = []
+
+    def spy(A, x):
+        calls.append(A.codes.shape)
+        return orig(A, x, interpret=True)
+    orig = kmvm.mvm_f32
+    monkeypatch.setattr(ops_mvm, "_on_gpu", lambda: True)
+    monkeypatch.setattr(kmvm, "mvm_f32", spy)
+    qA, qx, want = _integer_mvm_problem(256, 4096)
     # the per-shard geometry must be kernel-eligible or this test is vacuous
-    from clover_tpu.formats import QMat4, QVec4, pack_nibbles
     m, n = qA.rows, qA.cols
     A_l = QMat4(codes=qA.codes[: m // 2, : n // 8],
                 scales=qA.scales[: m // 128, : n // 256],
                 rows=m // 2, cols=n // 4)
     x_l = QVec4(codes=qx.codes[: n // 8], scales=qx.scales[: n // 256],
                 length=n // 4)
-    assert mvm_pallas_eligible(A_l, x_l)
+    assert kmvm.eligible(A_l, x_l)
     got = _run_mvm_psum(mesh, qA, qx)
+    assert calls == [A_l.codes.shape]
     np.testing.assert_array_equal(got, want)
 
 
@@ -345,38 +355,46 @@ def test_sharded_1x1_bitidentical_to_single(bits):
                                       np.asarray(shard.x.codes))
 
 
-def test_solver_auto_chunked_psum(mesh, monkeypatch):
-    """With a DCN-class link estimate the sharded solver auto-picks the
-    chunked-psum legs (pick_psum_chunks > 1, chunk containers prepared
-    once per solve); the chunked solve must behave like the plain one
-    (the per-chunk psum association legitimately reorders f32 sums, so
-    trajectory identity is not asserted — the exact-integer kernel
-    cross-check is test_mvm_psum_overlapped_exact)."""
-    from clover_tpu.parallel.ops import pick_psum_chunks
-    from clover_tpu.parallel.solvers import iht as iht_sharded
+def test_solver_auto_chunked_psum(mesh):
+    """The chunked-psum leg as a solver loop would run it: chunk
+    containers prepared ONCE outside a scan and reused by every step
+    (unprepared slices would copy the local matrix per call).  Exact on
+    the integer problem at every step; a ``prepared`` list of the wrong
+    length is rejected.  (The sharded solvers themselves run the plain
+    one-chunk mvm_psum until a four-card measurement judges overlap.)"""
+    from jax.sharding import PartitionSpec as P
+    from clover_tpu.formats import QMat4, QVec4
+    from clover_tpu.parallel.ops import (mvm_psum_overlapped,
+                                         prepare_psum_chunks)
+    from clover_tpu.parallel.solvers import _shard_map
 
-    # the model engages at realistic shard shapes on slow links...
-    monkeypatch.setenv("CLOVER_PSUM_LINK_GBS", "0.05")
-    assert pick_psum_chunks(16384, 16384, 4) > 1
-    monkeypatch.delenv("CLOVER_PSUM_LINK_GBS")
-    # ...and never on pure-ICI v5e meshes or the 1x1 mesh
-    assert pick_psum_chunks(16384, 16384, 4) == 1
-    assert pick_psum_chunks(16384, 16384, 1, link_gbs=0.01) == 1
-    # force the chunked solver legs regardless of problem size so the
-    # dispatch + prepared-chunk path is exercised on the sim mesh
-    import clover_tpu.parallel.ops as pops
-    monkeypatch.setattr(pops, "pick_psum_chunks",
-                        lambda *a, **kw: 3)
-    phi, x_star, y, k = _problem()
-    n = phi.shape[1]
-    qphi = quantize_mat(phi, 4, key=None)
-    qphit = transpose(qphi)
-    qy = quantize_vec(y, 4, key=None)
-    s_phi = shard_matrix(qphi, mesh)
-    s_phit = shard_matrix(qphit, mesh, transposed=True)
-    s_y = shard_vector(qy, mesh, "row")
-    res = iht_sharded(s_phi, s_phit, s_y, 15, k, 0.0042, mesh,
-                      x_star=QVec32(values=x_star, length=n))
-    tr = np.asarray(res.trace)
-    assert np.all(np.isfinite(tr))
-    assert tr[-1] < 0.6 * tr[0]
+    qA, qx, want = _integer_mvm_problem()
+    m, n = qA.rows, qA.cols
+
+    def local(ac, asc, xc, xsc):
+        A_l = QMat4(codes=ac, scales=asc, rows=m // 2, cols=n // 4)
+        x_l = QVec4(codes=xc, scales=xsc, length=n // 4)
+        prep = prepare_psum_chunks(A_l, 3)
+
+        def step(carry, _):
+            y = mvm_psum_overlapped(A_l, x_l, "col", None, 32, "row",
+                                    chunks=3, prepared=prep)
+            return carry, y.values
+        return jax.lax.scan(step, 0, None, length=3)[1]
+
+    fn = _shard_map(local, mesh,
+                    (P("row", "col"), P("row", "col"), P("col"), P("col")),
+                    P(None, "row"))
+    qAs = shard_matrix(qA, mesh)
+    qxs = shard_vector(qx, mesh, "col")
+    got = np.asarray(jax.jit(fn)(qAs.codes, qAs.scales,
+                                 qxs.codes, qxs.scales))
+    for row in got:
+        np.testing.assert_array_equal(row, want)
+
+    A_l = QMat4(codes=qA.codes[: m // 2, : n // 8],
+                scales=qA.scales[: m // 128, : n // 256],
+                rows=m // 2, cols=n // 4)
+    with pytest.raises(AssertionError):
+        mvm_psum_overlapped(A_l, None, "col", None, 32, "row", chunks=3,
+                            prepared=prepare_psum_chunks(A_l, 2))

@@ -15,8 +15,10 @@ from clover_tpu import golden
 from clover_tpu.formats import unpack_nibbles, pad_to
 from clover_tpu.ops import quantize_vec, quantize_mat, restore_vec, restore_mat
 
-SIZES = [128, 129, 191, 192, 255, 256, 257, 500, 1000, 1023, 1024]
-SHAPES = [(128, 128), (128, 256), (200, 300), (256, 128), (130, 570)]
+SIZES = [128, 129, 191, 192, 255, 256, 257, 500, 1000, 1023, 1024, 512,
+         4096]
+SHAPES = [(128, 128), (128, 256), (200, 300), (256, 128), (130, 570),
+          (256, 384), (192, 512)]
 
 
 def _int_data(rng, n):
@@ -61,6 +63,33 @@ def test_restore_matches_golden(rng, bits):
     codes = np.asarray(unpack_nibbles(q.codes)) if bits == 4 else np.asarray(q.codes)
     g = golden.restore_vec(codes, np.asarray(q.scales), bits)
     np.testing.assert_array_equal(np.asarray(restore_vec(q).values), g)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", [512, 4000, 16384])
+def test_restore_vec_sizes_vs_golden(rng, bits, n):
+    """restore is bit-identical to golden's code * (scale/qmax), padding
+    included."""
+    q = quantize_vec(jnp.asarray(_float_data(rng, n)), bits, key=None)
+    codes = np.asarray(unpack_nibbles(q.codes)) if bits == 4 else np.asarray(q.codes)
+    got = restore_vec(q)
+    assert got.length == n and got.values.shape == (pad_to(n),)
+    np.testing.assert_array_equal(
+        np.asarray(got.values), golden.restore_vec(codes, np.asarray(q.scales),
+                                                   bits))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,n", [(256, 512), (128, 1024), (200, 500)])
+def test_restore_mat_vs_golden(rng, bits, m, n):
+    a = (rng.random((m, n), dtype=np.float32) * 2 - 1)
+    q = quantize_mat(jnp.asarray(a), bits, key=None)
+    codes = np.asarray(unpack_nibbles(q.codes)) if bits == 4 else np.asarray(q.codes)
+    got = restore_mat(q)
+    assert (got.rows, got.cols) == (m, n)
+    np.testing.assert_array_equal(
+        np.asarray(got.values), golden.restore_mat(codes, np.asarray(q.scales),
+                                                   bits))
 
 
 def test_quantize_zero_block():

@@ -101,19 +101,17 @@ def test_iht_batched_matches_singles(bits):
                                   np.asarray(res2.xs.codes))
 
 
-def test_iht_batched_sr_on_fallback(monkeypatch):
+def test_iht_batched_sr_on_fallback():
     """Regression: SR-enabled batched solves must work on the vmapped
-    XLA fallback too — _op_seeds passes carried int32 seeds as `key`,
-    which jax.random.split rejected (the fallback now normalizes via
-    seed_from like every other op)."""
+    batched MVM — _op_seeds passes carried int32 seeds as `key`, which
+    jax.random.split rejected (mvm_batched normalizes via seed_from like
+    every other op)."""
     from clover_tpu.models import iht_batched
     B, m, n, k = 2, 256, 512, 32
     qphi, qphit, qys, stars_q, ys_stack, star_stack = _batched_setup(
         B, m, n, k, 4)
-    monkeypatch.setenv("CLOVER_PALLAS", "0")
     res = iht_batched(qphi, qphit, ys_stack, 5, k, 0.01,
                       key=jax.random.PRNGKey(0), xs_star=star_stack)
-    monkeypatch.delenv("CLOVER_PALLAS")
     tr = np.asarray(res.trace)
     assert np.all(np.isfinite(tr))
     # SR draws differ between keys
@@ -132,6 +130,67 @@ def test_gd_batched_converges():
                      key=None, xs_star=star_stack)
     tr = np.asarray(res.trace)
     assert np.all(np.isfinite(tr)) and np.all(tr[-1] < tr[0])
+
+
+def _iteration_problem(m, n, mb, vb, seed=0):
+    import jax.numpy as jnp
+    import clover_tpu as ct
+    rng = np.random.default_rng(seed)
+    phi = rng.random((m, n), dtype=np.float32) * 2 - 1
+    y = phi @ (rng.random(n, dtype=np.float32) * 2 - 1)
+    qphi = ct.quantize(jnp.asarray(phi), mb)
+    return (qphi, ct.transpose(qphi),
+            ct.quantize(jnp.asarray(y / np.abs(y).max()), vb),
+            ct.quantize(jnp.asarray(rng.random(n, dtype=np.float32) - 0.5),
+                        vb))
+
+
+@pytest.mark.parametrize("mb,vb", [(4, 4), (4, 8)])
+@pytest.mark.parametrize("m,n", [(512, 1024), (1024, 512)])
+def test_iteration_matches_op_sequence(mb, vb, m, n):
+    """One solver iteration is exactly the op sequence it stands for:
+    t2 = y - Phi x; x += mu PhiT t2 (each an MVM with its scaleAndAdd),
+    then the threshold — deterministic mode, bit for bit."""
+    import jax.numpy as jnp
+    import clover_tpu as ct
+    from clover_tpu.models.solvers import _iteration
+    qphi, qphit, qy, qx = _iteration_problem(m, n, mb, vb)
+    got = _iteration(qphi, qphit, qy, qx, jnp.float32(1e-3), 64, None)
+    t2 = ct.scale_and_add(qy, ct.mvm(qphi, qx), -1.0)
+    want = ct.threshold(ct.scale_and_add(qx, ct.mvm(qphit, t2), 1e-3), 64)
+    np.testing.assert_array_equal(np.asarray(got.codes),
+                                  np.asarray(want.codes))
+    np.testing.assert_array_equal(np.asarray(got.scales),
+                                  np.asarray(want.scales))
+
+
+@pytest.mark.parametrize("mb,vb", [(4, 4), (4, 8)])
+@pytest.mark.parametrize("k", [64, None])
+def test_solve_matches_iteration_sequence(mb, vb, k):
+    """A one-step scanned solve equals the jitted iteration bit for bit
+    (IHT and, with k=None, GD; SR off).  Longer solves are not compared
+    bitwise: XLA fuses the scan body differently from a standalone
+    iteration, so a 1-LSB flip can appear from the second step on."""
+    import jax.numpy as jnp
+    from clover_tpu.models import solvers
+    from clover_tpu.formats import unpack_nibbles
+    qphi, qphit, qy, _ = _iteration_problem(512, 1024, mb, vb)
+    x0 = solvers._initial_x(qphi, qy)
+    res = solvers._solve(qphi, qphit, qy, x0, None, 1, k,
+                         jnp.float32(1e-3), None)
+    # operands as arguments: closed-over constants would be folded at
+    # compile time, a different evaluation than the solve's
+    step = jax.jit(lambda *a: solvers._iteration(*a, k, None))
+    x = step(qphi, qphit, qy, x0, jnp.float32(1e-3))
+    np.testing.assert_array_equal(np.asarray(res.x.codes),
+                                  np.asarray(x.codes))
+    np.testing.assert_array_equal(np.asarray(res.x.scales),
+                                  np.asarray(x.scales))
+    res3 = solvers._solve(qphi, qphit, qy, x0, None, 3, k,
+                          jnp.float32(1e-3), None)
+    nnz = np.count_nonzero(np.asarray(unpack_nibbles(res3.x.codes))
+                           if res3.x.bits == 4 else np.asarray(res3.x.codes))
+    assert nnz > 0 and (k is None or nnz <= k)
 
 
 def test_problem_generators():
